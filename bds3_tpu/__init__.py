@@ -1,10 +1,10 @@
-"""bds3_tpu — TPU-native BDS-3 B1C/B2a software-defined GNSS receiver.
+"""bds3_tpu — BDS-3 B1C/B2a software-defined GNSS receiver in JAX.
 
-A ground-up JAX/XLA/Pallas redesign with the capabilities of the reference
+A ground-up JAX/XLA redesign with the capabilities of the reference
 MATLAB receiver (lyf8118/BDS-3-B1C-B2a-SDR-receiver): FFT cold-start
 acquisition, multi-channel closed-loop code/carrier tracking, B-CNAV1/2
-navigation-message decoding, pseudoranges, and least-squares PVT — built
-for single-chip and multi-chip TPU execution.
+navigation-message decoding, pseudoranges, and least-squares PVT — run
+on one GPU or sharded across several.
 """
 __version__ = "0.1.0"
 

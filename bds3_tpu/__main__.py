@@ -14,7 +14,7 @@ import numpy as np
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="bds3_tpu",
-                                description="TPU-native BDS-3 B1C/B2a receiver")
+                                description="BDS-3 B1C/B2a receiver")
     p.add_argument("--signal", choices=("b1c", "b2a"), required=True)
     p.add_argument("--file", required=True, help="IF capture path")
     p.add_argument("--file-type", type=int, default=1,
@@ -51,6 +51,9 @@ def main(argv=None):
     from bds3_tpu.config import FileType, TrackMode, b1c_settings, b2a_settings
     from bds3_tpu.io.ifdata import IFDataFile, probe_stats
     from bds3_tpu.receiver import resume_from_checkpoint, run_receiver
+    from bds3_tpu.utils.jax_setup import enable_compilation_cache
+
+    enable_compilation_cache()
 
     if args.resume:
         res = resume_from_checkpoint(args.resume)

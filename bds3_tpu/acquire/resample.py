@@ -8,8 +8,8 @@ alias the IF down.  The recovery of the original-rate code phase and
 carrier frequency mirrors the reference's "downsampling recovery"
 (acquisition.m:337-356).
 
-On TPU this trades FFT length for host filtering time; it is off by
-default (as in the reference settings).
+It trades FFT length for one device filtering pass; the B1C preset
+turns it on (the reference ships it off, initSettings.m).
 """
 from __future__ import annotations
 
@@ -62,12 +62,12 @@ def resample_signal(signal: np.ndarray, s: Settings,
 
 def resample_signal_device(signal, s: Settings,
                            plan: ResamplePlan):
-    """TPU-resident equivalent of `resample_signal` (returns jnp array).
+    """Device equivalent of `resample_signal` (returns jnp array).
 
     The reference's zero-phase filtfilt with a SYMMETRIC firwin kernel
     equals (away from the boundary transient) a single convolution with
     the kernel's autocorrelation conv(b, b[::-1]) = conv(b, b): that
-    runs as one XLA conv on the MXU instead of a host scipy filtfilt
+    runs as one device FFT convolution instead of a host scipy filtfilt
     over the multi-MB window (the reason the reference marks its own
     resampling path as costly).  The nearest-index decimation is a
     device gather.  Differences vs the host path are confined to the
@@ -86,15 +86,14 @@ def resample_signal_device(signal, s: Settings,
     x = jnp.asarray(signal).astype(jnp.float32)
     n = x.shape[0]
     k = len(bb)
-    # FFT convolution with a power-of-2 length: XLA:TPU handles a direct
-    # multi-MSample 1-D conv (and odd-length FFTs) pathologically —
-    # see docs/PERF.md "power-of-two FFT lengths only"
+    # FFT convolution with a power-of-2 length (a direct multi-MSample
+    # 1-D conv is far costlier; the FFT length is not yet tuned)
     nfft = 1
     while nfft < n + k:
         nfft <<= 1
     # kernel spectrum computed ON DEVICE from the 1401-tap constant (a
     # host-side np.fft.rfft would embed a multi-MB complex literal in
-    # the program, which the remote backend rejects)
+    # the compiled program)
     spec = jnp.fft.rfft(x, nfft) * jnp.fft.rfft(jnp.asarray(bb), nfft)
     full = jnp.fft.irfft(spec, nfft)
     filtered = full[(k - 1) // 2 : (k - 1) // 2 + n]  # 'same' alignment

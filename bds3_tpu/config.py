@@ -1,6 +1,6 @@
 """Typed receiver configuration.
 
-TPU-native redesign of the reference's flat MATLAB settings structs
+Redesign of the reference's flat MATLAB settings structs
 (`BDS-3_B1C/initSettings.m`, `BDS-3_B2a/initSettings.m`): one frozen
 dataclass shared by both signals, with per-signal presets.  Frozen +
 hashable so a Settings instance can be a static argument to `jax.jit`.

@@ -1,10 +1,10 @@
 """IF sample-file ingest.
 
-TPU-first redesign of the reference's sequential `fopen/fseek/fread` pattern
+Redesign of the reference's sequential `fopen/fseek/fread` pattern
 (`BDS-3_B2a/postProcessing.m:60-96`, `tracking.m:237-254`): the file is
 memory-mapped once and exposed as zero-copy numpy views; callers slice
 arbitrary windows (acquisition block, tracking block ranges) and upload them
-to device HBM in large chunks instead of reading one code period at a time.
+to device memory in large chunks instead of reading one code period at a time.
 
 Supports the two reference file layouts (`initSettings.m` fileType):
   REAL8 - 8-bit real samples S0,S1,S2,...

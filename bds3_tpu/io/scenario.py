@@ -38,6 +38,7 @@ from bds3_tpu.signals import (
     b2a_data_secondary,
     b2a_pilot_code,
 )
+from bds3_tpu.io.synth import render_chunks
 from bds3_tpu.signals.b1c import (
     b1c_data_boc11,
     b1c_pilot_boc11,
@@ -132,7 +133,7 @@ def _zero_clock(eph: Ephemeris) -> Ephemeris:
 
 
 def _nav_symbol_lookup(sc: Scenario, eph: Ephemeris):
-    """Returns f(period_idx_array) -> +-1 overlay for the data channel,
+    """Returns a callable period_idx_array -> +-1 overlay for the data channel,
     where period_idx is the absolute primary-code period count (sat time
     in code periods)."""
     s = sc.settings
@@ -146,14 +147,8 @@ def _nav_symbol_lookup(sc: Scenario, eph: Ephemeris):
             for m in range(n_msgs)
         ]
         stream = bcnav2_symbols(msgs, seed=eph.prn)  # one per 5ms symbol
-        sec = b2a_data_secondary()
         sym_start = first_msg * 600  # absolute 5-ms symbol index
-
-        def overlay(period_idx):
-            sym = stream[(period_idx // 5) - sym_start]
-            return sym * sec[period_idx % 5]
-
-        return overlay
+        return _SymbolOverlay(stream, sym_start, 5, b2a_data_secondary())
     else:
         # B-CNAV1: 1800-symbol frames every 18 s, aligned to SOH
         first_frame = int(sc.sow_base // 18) - 1
@@ -166,23 +161,36 @@ def _nav_symbol_lookup(sc: Scenario, eph: Ephemeris):
             frames.append(bcnav1_frame_symbols(e2, t_abs % 3600.0))
         stream = np.concatenate(frames)
         sym_start = first_frame * 1800
+        return _SymbolOverlay(stream, sym_start, 1, np.ones(1))
 
-        def overlay(period_idx):
-            return stream[period_idx - sym_start]
 
-        return overlay
+class _SymbolOverlay:
+    """period_idx -> +-1 data overlay: nav symbol (one per `per_symbol`
+    code periods, stream index offset by sym_start) times the data
+    secondary code (picklable, for render_chunks workers)."""
+
+    def __init__(self, stream, sym_start: int, per_symbol: int, sec):
+        self.stream, self.sym_start = stream, sym_start
+        self.per_symbol, self.sec = per_symbol, sec
+
+    def __call__(self, period_idx):
+        sym = self.stream[(period_idx // self.per_symbol) - self.sym_start]
+        return sym * self.sec[period_idx % len(self.sec)]
 
 
 def synthesize_scenario(sc: Scenario, n_ms: float | None = None,
                         noise_std: float = 2.0, amplitude: float = 0.65,
                         seed: int = 0, chunk: int = 1 << 21,
-                        pilot_secondary: bool = True) -> np.ndarray:
+                        pilot_secondary: bool = True,
+                        workers: int = 1) -> np.ndarray:
     """Render the IF capture (int8 real samples).
 
     pilot_secondary: modulate the B2a pilot with its 100-chip secondary
     overlay (on by default — the on-air signal has it; see the note at
     the component setup).  B1C pilots always carry their 1800-chip
-    secondary code."""
+    secondary code.
+    workers: render chunks in that many processes (io.synth.render_chunks);
+    the output does not depend on it."""
     s = sc.settings
     if n_ms is None:
         n_ms = s.ms_to_process
@@ -233,29 +241,35 @@ def synthesize_scenario(sc: Scenario, n_ms: float | None = None,
 
     rng = np.random.default_rng(seed)
     out = np.empty(n, dtype=np.int8)
-    for start in range(0, n, chunk):
-        stop = min(start + chunk, n)
-        t = np.arange(start, stop, dtype=np.float64) / fs
-        acc = np.zeros(stop - start)
-        for eph, a0, a1, tau_g, overlay, comps, sec_pilot in per_sat:
-            tau = np.interp(t, t_grid, tau_g)
-            u = sc.sow_base + t - tau
-            dt_sv = a0 + a1 * (u - eph.t_oc)
-            t_sv = u + dt_sv                       # sat-clock time [SOW s]
-            chips = t_sv * s.code_freq_basis       # absolute chip count
-            period = np.floor(chips / L).astype(np.int64)
-            theta = 2 * np.pi * (
-                s.intermediate_freq * t - f_rf * (tau - dt_sv)
-            )
-            for wave, m, ovl, psi, amp in comps:
-                entry = np.floor(chips * m).astype(np.int64) % (L * m)
-                v = wave[entry].astype(np.float64)
-                if ovl is True:
-                    v = v * overlay(period)
-                elif ovl == "sec":
-                    v = v * -sec_pilot[period % len(sec_pilot)]
-                acc += amp * v * np.cos(theta + psi)
+    ctx = (sc.sow_base, s.code_freq_basis, s.intermediate_freq, f_rf, L, fs,
+           t_grid, per_sat)
+    for start, stop, acc in render_chunks(_scenario_chunk, ctx, n, chunk,
+                                          workers):
         if noise_std > 0:
             acc += noise_std * rng.standard_normal(stop - start)
         out[start:stop] = np.clip(np.round(acc), -128, 127).astype(np.int8)
     return out
+
+
+def _scenario_chunk(ctx, start: int, stop: int) -> np.ndarray:
+    """Noise-free float64 signal content of samples [start, stop)."""
+    sow_base, f_code, f_if, f_rf, L, fs, t_grid, per_sat = ctx
+    t = np.arange(start, stop, dtype=np.float64) / fs
+    acc = np.zeros(stop - start)
+    for eph, a0, a1, tau_g, overlay, comps, sec_pilot in per_sat:
+        tau = np.interp(t, t_grid, tau_g)
+        u = sow_base + t - tau
+        dt_sv = a0 + a1 * (u - eph.t_oc)
+        t_sv = u + dt_sv                       # sat-clock time [SOW s]
+        chips = t_sv * f_code                  # absolute chip count
+        period = np.floor(chips / L).astype(np.int64)
+        theta = 2 * np.pi * (f_if * t - f_rf * (tau - dt_sv))
+        for wave, m, ovl, psi, amp in comps:
+            entry = np.floor(chips * m).astype(np.int64) % (L * m)
+            v = wave[entry].astype(np.float64)
+            if ovl is True:
+                v = v * overlay(period)
+            elif ovl == "sec":
+                v = v * -sec_pilot[period % len(sec_pilot)]
+            acc += amp * v * np.cos(theta + psi)
+    return acc

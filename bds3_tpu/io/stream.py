@@ -7,13 +7,12 @@ blocks (hundreds of MB) through a slice interface; this source serves
 those slices with the native `pread` runtime (bds3_tpu/runtime, O(1)
 page-cache pressure, POSIX_FADV_SEQUENTIAL) and overlaps the NEXT
 block's disk read with the device compute of the current one via a
-single lookahead thread — the IO analog of the fused kernel's window
-DMA ring.
+single lookahead thread.
 
 `track()` accepts any object with `__len__`/contiguous `__getitem__`
 returning int8 numpy, so a StreamingCapture drops in wherever a memmap
 or in-memory array does, without the driver holding the whole capture
-in RAM or HBM.
+in host or device memory.
 """
 from __future__ import annotations
 

@@ -120,6 +120,84 @@ def _b1c_components(sat: SatParams, n_periods: int) -> list[_Component]:
     ]
 
 
+def render_chunks(chunk_fn, ctx, n: int, chunk: int, workers: int = 1):
+    """Yield (start, stop, chunk_fn(ctx, start, stop)) over [0, n) in
+    order.  With workers > 1 the chunks are rendered in that many spawned
+    processes (on the CPU; they never open an accelerator) while the
+    caller consumes them in order, so sequential state such as a noise
+    generator stays with the caller and the output is identical to
+    workers=1.  chunk_fn must be a module-level function and ctx
+    picklable."""
+    bounds = [(a, min(a + chunk, n)) for a in range(0, n, chunk)]
+    if workers <= 1:
+        for a, b in bounds:
+            yield a, b, chunk_fn(ctx, a, b)
+        return
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    saved = os.environ.get("JAX_PLATFORMS")
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_init_worker, initargs=(chunk_fn, ctx)) as ex:
+        os.environ["JAX_PLATFORMS"] = "cpu"   # seen by the workers only
+        try:
+            results = ex.map(_run_worker_chunk, bounds)  # starts them all
+        finally:
+            if saved is None:
+                del os.environ["JAX_PLATFORMS"]
+            else:
+                os.environ["JAX_PLATFORMS"] = saved
+        for (a, b), acc in zip(bounds, results):
+            yield a, b, acc
+
+
+_WORKER_JOB = None
+
+
+def _init_worker(chunk_fn, ctx) -> None:
+    global _WORKER_JOB
+    _WORKER_JOB = (chunk_fn, ctx)
+
+
+def _run_worker_chunk(bounds):
+    chunk_fn, ctx = _WORKER_JOB
+    return chunk_fn(ctx, *bounds)
+
+
+def _if_chunk(ctx, start: int, stop: int) -> np.ndarray:
+    """Noise-free signal content of samples [start, stop) (float64, or
+    complex128 for IQ8)."""
+    settings, sats, comps_per_sat, start_sample = ctx
+    fs = settings.sampling_freq
+    L = settings.code_length
+    complex_out = settings.file_type == FileType.IQ8
+    t = np.arange(start_sample + start, start_sample + stop,
+                  dtype=np.float64) / fs
+    acc = np.zeros(stop - start, dtype=np.complex128) if complex_out \
+        else np.zeros(stop - start, dtype=np.float64)
+    for sat, comps in zip(sats, comps_per_sat):
+        f_carr = settings.intermediate_freq + sat.doppler_hz
+        theta = 2.0 * math.pi * f_carr * t + sat.carrier_phase
+        code_rate = settings.code_freq_basis * (
+            1.0 + sat.doppler_hz / settings.carr_freq_basis
+        )
+        chips = sat.code_phase_chips + t * code_rate  # absolute chip count
+        period_idx = np.floor(chips / L).astype(np.int64)
+        for c in comps:
+            entry = np.floor(chips * c.entries_per_chip).astype(np.int64) \
+                % (L * c.entries_per_chip)
+            wave = c.waveform[entry].astype(np.float64)
+            if c.overlay is not None:
+                wave = wave * c.overlay[period_idx % len(c.overlay)]
+            if complex_out:
+                acc += c.amplitude * wave * np.exp(1j * (theta + c.phase_offset))
+            else:
+                acc += c.amplitude * wave * np.cos(theta + c.phase_offset)
+    return acc
+
+
 def synthesize_if(
     settings: Settings,
     sats: list[SatParams],
@@ -129,6 +207,7 @@ def synthesize_if(
     quantize: bool = True,
     chunk: int = 1 << 21,
     start_sample: int = 0,
+    workers: int = 1,
 ) -> np.ndarray:
     """Synthesize an IF capture.  Returns int8 (quantize=True) or float32.
 
@@ -138,10 +217,11 @@ def synthesize_if(
     phase-continuous segmented generation (a 49 s capture rendered in
     500 ms file-append chunks is bit-identical in signal content to a
     single call, modulo the per-chunk noise stream).
+    workers: render chunks in that many processes (render_chunks); the
+    output does not depend on it.
     """
     fs = settings.sampling_freq
     n = int(round(n_ms * 1e-3 * fs))
-    L = settings.code_length
     complex_out = settings.file_type == FileType.IQ8
 
     total_periods = int(
@@ -157,30 +237,8 @@ def synthesize_if(
     out = np.empty((n, 2) if complex_out else (n,),
                    dtype=np.int8 if quantize else np.float32)
 
-    for start in range(0, n, chunk):
-        stop = min(start + chunk, n)
-        t = np.arange(start_sample + start, start_sample + stop,
-                      dtype=np.float64) / fs
-        acc = np.zeros(stop - start, dtype=np.complex128) if complex_out \
-            else np.zeros(stop - start, dtype=np.float64)
-        for sat, comps in zip(sats, comps_per_sat):
-            f_carr = settings.intermediate_freq + sat.doppler_hz
-            theta = 2.0 * math.pi * f_carr * t + sat.carrier_phase
-            code_rate = settings.code_freq_basis * (
-                1.0 + sat.doppler_hz / settings.carr_freq_basis
-            )
-            chips = sat.code_phase_chips + t * code_rate  # absolute chip count
-            period_idx = np.floor(chips / L).astype(np.int64)
-            for c in comps:
-                entry = np.floor(chips * c.entries_per_chip).astype(np.int64) \
-                    % (L * c.entries_per_chip)
-                wave = c.waveform[entry].astype(np.float64)
-                if c.overlay is not None:
-                    wave = wave * c.overlay[period_idx % len(c.overlay)]
-                if complex_out:
-                    acc += c.amplitude * wave * np.exp(1j * (theta + c.phase_offset))
-                else:
-                    acc += c.amplitude * wave * np.cos(theta + c.phase_offset)
+    ctx = (settings, sats, comps_per_sat, start_sample)
+    for start, stop, acc in render_chunks(_if_chunk, ctx, n, chunk, workers):
         if noise_std > 0.0:
             if complex_out:
                 acc += noise_std * (

@@ -4,8 +4,8 @@ The reference is a single MATLAB process; multi-host here means
 `jax.distributed` + a global mesh whose "channel" (and optionally
 "time") axes span hosts.  Channel fan-out needs no cross-host traffic
 besides the initial placement; time-sharded acquisition exchanges
-overlap-save halos over DCN via the same ppermute path validated on the
-virtual mesh (parallel/timeshard.py).
+overlap-save halos between processes via the same ppermute path
+validated on the virtual mesh (parallel/timeshard.py).
 """
 from __future__ import annotations
 
@@ -20,8 +20,8 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
     process).  Arguments default to the JAX_COORDINATOR_ADDRESS /
     JAX_NUM_PROCESSES / JAX_PROCESS_ID environment variables set by
     tools/launch_multihost.py (read explicitly — this jax version's
-    initialize() does not consume them itself); on Cloud TPU pod VMs all
-    three stay None and the runtime self-discovers."""
+    initialize() does not consume them itself).  Nothing discovers a
+    cluster on its own: give all three, by argument or environment."""
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if num_processes is None and "JAX_NUM_PROCESSES" in os.environ:
         num_processes = int(os.environ["JAX_NUM_PROCESSES"])

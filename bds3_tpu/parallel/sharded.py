@@ -111,11 +111,10 @@ def shard_map_track_block(mesh: Mesh, cfg: TrackConfig, block,
                           ck_p61_frac, consts: ChannelConsts,
                           state: ChannelState, axis: str = "channel"):
     """Channel-sharded tracking via `shard_map`: each device runs the
-    full per-block kernel (including the fused Pallas correlator — a
-    custom call XLA's auto-partitioner cannot split, which is why the
-    production multi-chip path is manual) on its local channel slice.
-    No cross-device traffic inside the block; equivalent to
-    `sharded_track_block` for the XLA correlators."""
+    full per-block program on its local channel slice, with the
+    partitioning stated explicitly instead of left to XLA.  No
+    cross-device traffic inside the block; equivalent to
+    `sharded_track_block`."""
     from bds3_tpu.track.scan import output_names
 
     n_dev = mesh.shape[axis]

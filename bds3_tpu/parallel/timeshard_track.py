@@ -19,7 +19,8 @@ Equivalence: each device's local block is the same signal slice the
 sequential driver would feed to its block loop, and the state handoff is
 the same arithmetic as the driver's cursor rebase, so an N-shard run
 reproduces the 1-device run to float32 tolerance (tests/test_timeshard_
-track.py asserts this on the 8-device CPU mesh).
+track.py asserts this on the 8-device CPU mesh; `chip_smoke.py --four`
+on four GPUs).
 """
 from __future__ import annotations
 
@@ -108,7 +109,7 @@ def time_sharded_track(
     n_groups: int | None = None,
     axis: str = "time",
     channel_axis: str | None = None,
-    correlator: str | None = None,
+    correlator: str = "auto",
 ):
     """Track `inits` channels over `n_epochs` epochs with the sample
     stream time-sharded across mesh[axis].
@@ -117,15 +118,12 @@ def time_sharded_track(
     split into n_groups pipeline groups (default: time-axis size, capped
     by the channel count).  Returns a dict name -> (C, n_epochs) f32.
 
-    channel_axis: optional second mesh axis — the production pod layout
-    ("time", "channel"): each pipeline group's channels are sharded
+    channel_axis: optional second mesh axis ("time", "channel"): each
+    pipeline group's channels are sharded
     across mesh[channel_axis], so a 2-D mesh composes the loop-state
     handoff ring with channel fan-out (SURVEY.md section 2.5;
     tracking.m:237-254's stream axis x its channel loop).
-    correlator: override the block correlator ("fused" runs the Pallas
-    kernel inside the shard_map workers; default is the config's)."""
-    import dataclasses
-
+    correlator: the block correlator, resolved as in track/driver.py."""
     n_dev = mesh.shape[axis]
     if n_epochs % n_dev:
         raise ValueError(f"n_epochs {n_epochs} % n_dev {n_dev} != 0")
@@ -141,9 +139,7 @@ def time_sharded_track(
         raise ValueError(
             f"group channels {Cg} % mesh[{channel_axis}] {n_ch_dev} != 0")
 
-    cfg = make_track_config(settings, np.iscomplexobj(signal), W)
-    if correlator is not None and correlator != cfg.correlator:
-        cfg = dataclasses.replace(cfg, correlator=correlator)
+    cfg = make_track_config(settings, np.iscomplexobj(signal), W, correlator)
     consts = channel_consts(cfg, inits, settings)
     data_t, p11_t, p61_t = channel_code_tables(cfg, inits)
     ckd_i, ckd_f = code_coarse_tables(cfg, cfg.m_data)
@@ -208,7 +204,7 @@ def time_sharded_track(
     )                                             # (n_dev, G, F, W, Cg)
     if jax.process_count() > 1:
         # time axis spans processes: fetch the remote shards over the
-        # distributed backend (DCN / Gloo)
+        # distributed backend
         from jax.experimental import multihost_utils
 
         out = np.asarray(multihost_utils.process_allgather(res, tiled=True))

@@ -2,7 +2,7 @@
 //
 // The reference receiver's runtime is MATLAB fopen/fread plus a packed
 // 2-bit capture converter (BDS-3_B2a/include/unpack_cplx.m); this library
-// provides the TPU framework's native equivalents: high-throughput
+// provides the framework's native equivalents: high-throughput
 // NUT4NT 2-bit unpack, IQ de-interleave, and readahead-hinted block reads,
 // exposed through a plain C ABI for ctypes.
 //

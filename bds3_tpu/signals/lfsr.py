@@ -1,6 +1,6 @@
 """Gold-like LFSR code generation for B2a (two 13-bit registers).
 
-TPU-first redesign note: the reference shifts two 13-element bipolar vectors
+Redesign note: the reference shifts two 13-element bipolar vectors
 chip-by-chip per PRN (`generateB2aDataCode.m:123-138`).  Here the registers
 are 13-bit integers; the PRN-independent G1 sequence is generated once, and
 the 63 G2 registers advance together as a vectorized numpy array, so all 63

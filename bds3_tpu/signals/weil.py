@@ -1,6 +1,6 @@
 """Legendre sequences and truncated Weil codes (B1C primary/secondary codes).
 
-TPU-first redesign note: the reference evaluates the Legendre symbol with a
+Redesign note: the reference evaluates the Legendre symbol with a
 recursive quadratic-reciprocity routine per index
 (`BDS-3_B1C/include/JacobiSymbol.m`, called 10242x per code).  For prime N the
 Legendre sequence is just the quadratic-residue indicator, which we build in

@@ -1,19 +1,19 @@
 """The tracking epoch scan: closed-loop DLL/PLL over `lax.scan`, channels
 vmapped.
 
-TPU-first redesign of the reference per-channel, per-epoch Python-style
+Redesign of the reference per-channel, per-epoch Python-style
 loops (`BDS-3_B2a/tracking.m:195-436`, `BDS-3_B1C/WB_tracking.m:206-496`,
 `NB_tracking.m`): the only true sequential dependency is the small scalar
 loop state (NCO phases/frequencies, filter memories), so each scan step
-does one *epoch* of work — ~1e5-1e6 samples of fused mix+correlate across
+does one *epoch* of work — ~1e5-1e6 samples of mix+correlate across
 all channels at once — and `lax.scan` carries the loop state.  The
 variable MATLAB `blksize` becomes a fixed-size masked window (SURVEY.md
 section 7.4 item 2).
 
 Memory-access design: the scan body never touches the large signal block.
 Epoch windows are pre-gathered *outside* the scan at per-channel nominal
-strides (cursor0 + e*floor(expected advance) - guard), so XLA streams
-HBM->VMEM with static access patterns; the few-sample difference between
+strides (cursor0 + e*floor(expected advance) - guard), so every scan step
+reads static-shape windows; the few-sample difference between
 the true NCO cursor and the nominal window start rides in a per-epoch
 `off` scalar folded into the phase bases and the validity mask.
 
@@ -44,35 +44,6 @@ def window_length(cfg: TrackConfig) -> int:
     return cfg.n_win
 
 
-def _monotone_gather2(p2: jnp.ndarray, iw: jnp.ndarray,
-                      stride_int: int) -> jnp.ndarray:
-    """Gather p2[(n_p, 2)] at monotone indices iw[(n,)] via tiled one-hot
-    matmuls (TPU gathers are ~serial; MXU matvecs are not).
-
-    Indices advance ~stride_int+{0,1} per step, so each 128-index tile
-    lies in a contiguous window of the source; the lookup becomes
-    (128, S) one-hot @ (S, 2).
-    """
-    tile = 128
-    n = iw.shape[0]
-    n_t = -(-n // tile)
-    pad = n_t * tile - n
-    iw_p = jnp.pad(iw, (0, pad), mode="edge").reshape(n_t, tile)
-    s_len = ((stride_int + 2) * tile + 127) // 128 * 128
-    base = jnp.clip(iw_p[:, 0], 0, p2.shape[0] - s_len)
-
-    def per_tile(b, idxs):
-        win = jax.lax.dynamic_slice(p2, (b, 0), (s_len, 2))
-        rel = idxs - b
-        onehot = (rel[:, None] ==
-                  jnp.arange(s_len, dtype=jnp.int32)[None, :])
-        return jnp.dot(onehot.astype(jnp.float32), win,
-                       preferred_element_type=jnp.float32)
-
-    vals = jax.vmap(per_tile)(base, iw_p)       # (n_t, tile, 2)
-    return vals.reshape(n_t * tile, 2)[:n]
-
-
 def _code_indices(cfg: TrackConfig, m: int, ck_int, ck_frac,
                   base_chips, d_step, k_idx, r_f, j_f):
     """Per-sample gather index into an m-entries-per-chip table.
@@ -89,13 +60,10 @@ def _code_indices(cfg: TrackConfig, m: int, ck_int, ck_frac,
     return jnp.mod(idx, lm)
 
 
-def _epoch(cfg: TrackConfig, tables, consts_row, state_row, win, start,
-           p_row=None):
+def _epoch(cfg: TrackConfig, tables, consts_row, state_row, win, start):
     """One tracking epoch for one channel (vmapped over channels).
 
     win: (n_win,) pre-gathered samples beginning at stream index `start`.
-    p_row: optional (n_win, 2) precomputed exclusive i/q prefixes (the
-    pallas mix_prefix kernel output); skips the in-epoch mix+cumsum.
     """
     (cursor, rem_code, rem_cyc, d_cyc, d_step,
      code_nco, code_error, d1_carr, d2_carr) = state_row
@@ -107,10 +75,10 @@ def _epoch(cfg: TrackConfig, tables, consts_row, state_row, win, start,
     # offset of the true epoch start inside the nominal window
     off = cursor - start
     off_f = off.astype(jnp.float32)
-    bucketish = cfg.correlator in ("bucket", "bucket_pallas")
+    bucketish = cfg.correlator == "bucket"
     if bucketish:
-        # keep per-sample index tables STATIC (traced-offset int div/mod is
-        # ~15 ms/epoch on TPU) and fold `off` into scalar phase bases:
+        # keep per-sample index tables STATIC (no traced-offset int
+        # div/mod per sample) and fold `off` into scalar phase bases:
         # theta(j) = rem + j*f == (rem - off*f) + i*f with j = i - off.
         j_f = i32.astype(jnp.float32)
         k_idx = i32 // SPLIT
@@ -130,34 +98,30 @@ def _epoch(cfg: TrackConfig, tables, consts_row, state_row, win, start,
     delta = jnp.ceil(resid).astype(jnp.int32)
     blksize = cfg.q0_int + delta
 
-    if p_row is not None:
-        # the fused pallas kernel already mixed, masked, and prefix-summed
-        p_iq = p_row                              # (n_win, 2) exclusive
+    mask = ((i32 >= off) & (i32 < off + blksize)).astype(jnp.float32)
+
+    # --- local carrier (WB_tracking.m:329-346, e^{-j theta}) -------------
+    rem_eff = rem_cyc - off_f * (a_base + d_cyc) if bucketish else rem_cyc
+    cyc = jnp.mod(carr_t[k_idx] + rem_eff + r_f * a_base + j_f * d_cyc,
+                  1.0)
+    ang = (2.0 * np.pi) * cyc
+    c, s = jnp.cos(ang), jnp.sin(ang)
+    if cfg.complex_input:
+        xr, xi = jnp.real(win), jnp.imag(win)
+        i_bb = (xr * c + xi * s) * mask
+        q_bb = (xi * c - xr * s) * mask
     else:
-        mask = ((i32 >= off) & (i32 < off + blksize)).astype(jnp.float32)
+        x = win.astype(jnp.float32)
+        i_bb = x * c * mask
+        q_bb = -(x * s) * mask
 
-        # --- local carrier (WB_tracking.m:329-346, e^{-j theta}) ---------
-        rem_eff = rem_cyc - off_f * (a_base + d_cyc) if bucketish else rem_cyc
-        cyc = jnp.mod(carr_t[k_idx] + rem_eff + r_f * a_base + j_f * d_cyc,
-                      1.0)
-        ang = (2.0 * np.pi) * cyc
-        c, s = jnp.cos(ang), jnp.sin(ang)
-        if cfg.complex_input:
-            xr, xi = jnp.real(win), jnp.imag(win)
-            i_bb = (xr * c + xi * s) * mask
-            q_bb = (xi * c - xr * s) * mask
-        else:
-            x = win.astype(jnp.float32)
-            i_bb = x * c * mask
-            q_bb = -(x * s) * mask
-
-        if bucketish:
-            # Prefix sums once per epoch; each correlator then needs only
-            # ~L boundary lookups instead of N per-sample gathers.
-            p_iq = jnp.stack([
-                jnp.concatenate([jnp.zeros(1, jnp.float32), jnp.cumsum(i_bb)]),
-                jnp.concatenate([jnp.zeros(1, jnp.float32), jnp.cumsum(q_bb)]),
-            ], axis=-1)                           # (n_win+1, 2)
+    if bucketish:
+        # Prefix sums once per epoch; each correlator then needs only
+        # ~L boundary lookups instead of N per-sample gathers.
+        p_iq = jnp.stack([
+            jnp.concatenate([jnp.zeros(1, jnp.float32), jnp.cumsum(i_bb)]),
+            jnp.concatenate([jnp.zeros(1, jnp.float32), jnp.cumsum(q_bb)]),
+        ], axis=-1)                           # (n_win+1, 2)
 
     def correlate(table, m, ck, off_chips):
         base = rem_code + off_chips
@@ -186,13 +150,13 @@ def _epoch(cfg: TrackConfig, tables, consts_row, state_row, win, start,
         # window-domain boundary; past off+blk the (masked) prefix is
         # constant, so clipping to the last stored entry is exact
         iw = jnp.clip(j_k + off, 0, p_iq.shape[0] - 1)
-        if jax.default_backend() == "cpu":
-            g = p_iq[iw]          # CPU gathers are fast; TPU's are serial
-        else:
-            g = _monotone_gather2(p_iq, iw, inv0_int)
+        g = p_iq[iw]                              # (lm + 2*CODE_PAD + 1, 2)
         b_iq = g[1:] - g[:-1]                     # (lm + 2*CODE_PAD, 2)
         cv = table.astype(jnp.float32)            # extended chips
-        corr = jnp.dot(cv, b_iq, preferred_element_type=jnp.float32)
+        # full f32: the boundary differences of ~1e4-1e5 prefix sums must
+        # not be rounded to TF32 on GPUs that default to it
+        corr = jnp.dot(cv, b_iq, preferred_element_type=jnp.float32,
+                       precision=jax.lax.Precision.HIGHEST)
         return corr[0], corr[1]
 
     ck_d = tables["ck_data"]
@@ -345,15 +309,8 @@ def track_block(
 ):
     """Run cfg.epochs_per_block epochs for all channels; returns
     (new_state, outputs dict of (W, C) arrays)."""
-    if cfg.correlator == "fused":
-        from bds3_tpu.track.pallas_fused import fused_track_block
-
-        return fused_track_block(cfg, block, data_tables, pilot11_tables,
-                                 consts, state,
-                                 pilot61_tables=pilot61_tables)
     W = cfg.epochs_per_block
     n_win = window_length(cfg)
-    C = data_tables.shape[0]
 
     cursor0 = jnp.asarray(state.cursor, jnp.int32)             # (C,)
     adv_int = jnp.asarray(consts.adv_int, jnp.int32)           # (C,)
@@ -362,8 +319,7 @@ def track_block(
         - START_GUARD                                           # (W, C)
     # 128-align the window starts (the off/phase folding absorbs the
     # shift exactly) so the pre-gather slices whole rows of the reshaped
-    # block: XLA's byte-offset 1D dynamic-slice is ~4x slower on TPU
-    # (benchmarks/fused_parts.py)
+    # block
     starts = jnp.maximum((starts >> 7) << 7, 0)
 
     # pre-gather all epoch windows with static-shape slices (outside the
@@ -375,38 +331,10 @@ def track_block(
             b2, (s0 >> 7, 0), (n_win // 128, 128)).reshape(n_win)
     ))(starts)                                                  # (W, C, n_win)
 
-    use_pallas = cfg.correlator == "bucket_pallas" and not cfg.complex_input
-    if use_pallas:
-        from bds3_tpu.track.pallas_prefix import mix_prefix
-
-        T = n_win // SPLIT
-        tile_idx = jnp.arange(T, dtype=jnp.float32) * float(SPLIT)
-        a_base_c = jnp.asarray(consts.a_base)
-        carr_t_c = jnp.asarray(consts.carr_t)[:, :T]
-
     def step(carry, xs):
         win_row, start_row = xs
 
-        if use_pallas:
-            # fused mix+mask+prefix for all channels in one pallas call
-            (cursor, rem_code, rem_cyc, d_cyc, d_step, *_rest) = carry
-            off = cursor - start_row
-            e_rel = d_step / jnp.float32(cfg.step_base)
-            resid = cfg.q0_frac - (
-                rem_code / jnp.float32(cfg.step_base)
-                + (cfg.q0_int + cfg.q0_frac) * e_rel
-            ) * (1.0 - e_rel + e_rel * e_rel)
-            blk = cfg.q0_int + jnp.ceil(resid).astype(jnp.int32)
-            slope = a_base_c + d_cyc
-            rem_eff = rem_cyc - off.astype(jnp.float32) * slope
-            base = carr_t_c + rem_eff[:, None] \
-                + tile_idx[None, :] * d_cyc[:, None]
-            p_i, p_q = mix_prefix(win_row, base, slope, off, blk)
-            p_rows = jnp.stack([p_i, p_q], axis=-1)   # (C, n_win, 2)
-        else:
-            p_rows = None
-
-        def one_channel(st_row, dtab, p11tab, p61tab, c_row, w, s0, p_row):
+        def one_channel(st_row, dtab, p11tab, p61tab, c_row, w, s0):
             tables = {
                 "data": dtab,
                 "pilot11": p11tab,
@@ -414,15 +342,12 @@ def track_block(
                 "ck_data": (ck_data_int, ck_data_frac),
                 "ck_p61": (ck_p61_int, ck_p61_frac),
             }
-            return _epoch(cfg, tables, c_row, st_row, w, s0, p_row)
+            return _epoch(cfg, tables, c_row, st_row, w, s0)
 
-        new_state, out = jax.vmap(
-            one_channel, in_axes=(0, 0, 0, 0, 0, 0, 0,
-                                  0 if use_pallas else None)
-        )(carry, data_tables, pilot11_tables, pilot61_tables,
-          tuple(consts)[:5], win_row, start_row, p_rows)
-        # pack all outputs into ONE scan leaf: each extra leaf costs a
-        # dynamic-update-slice per iteration on TPU
+        new_state, out = jax.vmap(one_channel)(
+            carry, data_tables, pilot11_tables, pilot61_tables,
+            tuple(consts)[:5], win_row, start_row)
+        # pack all outputs into ONE scan leaf (one stacked output per step)
         names = sorted(out.keys())
         packed = jnp.stack([out[k].astype(jnp.float32) for k in names])
         return new_state, packed

@@ -1,9 +1,9 @@
 """Tracking configuration, per-channel state, and host-precomputed phase
 tables.
 
-Float strategy (TPU has no usable 64-bit types — see utils/phase.py): all
-device math is float32; the precision that the reference gets from MATLAB
-float64 comes from splitting every per-sample phase into
+Float strategy (see utils/phase.py): all device math is float32; the
+precision that the reference gets from MATLAB float64 comes from
+splitting every per-sample phase into
 
   value(i) = [host-f64 coarse table at k = i // 4096]  +  small f32 residual
 
@@ -24,6 +24,24 @@ from bds3_tpu.track.loops import dll_coefficients, pll_coefficients
 from bds3_tpu.track.weighting import wb_dll_weight
 
 SPLIT = 4096  # per-sample phase decomposition block (matches utils/phase.py)
+
+# Tracking correlators: "gather" (per-sample reference semantics) and
+# "bucket" (prefix-sum regrouping).  "auto" resolves to AUTO_CORRELATOR,
+# the variant measured fastest within tolerance (docs/PERF.md: on an
+# H100, "gather" at both B2a 12 ch and B1C wideband 12 ch).
+CORRELATORS = ("gather", "bucket")
+AUTO_CORRELATOR = "gather"
+
+
+def resolve_correlator(correlator: str) -> str:
+    """Map a correlator request to a concrete path.  "auto" takes the
+    measured choice, the same on every backend."""
+    if correlator == "auto":
+        return AUTO_CORRELATOR
+    if correlator not in CORRELATORS:
+        raise ValueError(f"unknown correlator {correlator!r}; "
+                         f"expected 'auto' or one of {CORRELATORS}")
+    return correlator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +73,7 @@ class TrackConfig:
                               # | "dotprod" (see config)
     complex_input: bool
     epochs_per_block: int
-    correlator: str = "bucket"  # "bucket" (prefix-sum) or "gather"
+    correlator: str = AUTO_CORRELATOR  # one of CORRELATORS
     spacing61: float = 0.02   # BOC(6,1) E-L half spacing [chips], used by
                               # the "split" blend only (config note)
 
@@ -125,7 +143,7 @@ def assign_channels(acq, settings: Settings) -> list[ChannelInit]:
 
 def make_track_config(s: Settings, complex_input: bool = False,
                       epochs_per_block: int = 100,
-                      correlator: str = "bucket") -> TrackConfig:
+                      correlator: str = "auto") -> TrackConfig:
     if s.signal == Signal.B2A:
         m_data, m_p61 = 1, 0
     else:
@@ -136,8 +154,8 @@ def make_track_config(s: Settings, complex_input: bool = False,
     q0_int = int(np.floor(q0))
     n_max = q0_int + 4
     # pre-gathered window: epoch + in-block drift slack + guards + the
-    # fused kernel's 128-sample start alignment, rounded to a whole
-    # number of SPLIT tiles (the pallas prefix kernel's tile)
+    # 128-sample start alignment of track_block's pre-gather, rounded to
+    # a whole number of SPLIT tiles
     n_win = n_max + epochs_per_block + 2 * 16 + 128
     n_win = -(-n_win // SPLIT) * SPLIT
     tau1, tau2 = dll_coefficients(s.dll_bw, s.dll_damping, 1.0)
@@ -173,7 +191,7 @@ def make_track_config(s: Settings, complex_input: bool = False,
         spacing61=min(getattr(s, "dll_spacing_boc61", 0.02), s.dll_spacing),
         complex_input=complex_input,
         epochs_per_block=epochs_per_block,
-        correlator=correlator,
+        correlator=resolve_correlator(correlator),
     )
 
 

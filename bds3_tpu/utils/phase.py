@@ -3,8 +3,8 @@
 Computing 2*pi*f*t directly in float32 is catastrophically wrong for GNSS
 spans: f ~ 1.5e7 Hz, t up to 20 ms gives phases ~ 3e5 cycles, where float32
 resolution is ~0.03 cycles.  The reference gets away with float64 MATLAB;
-on TPU we stay in float32 by reducing modulo one cycle *before* the rounding
-can hurt:
+on device we stay in float32 by reducing modulo one cycle *before* the
+rounding can hurt:
 
   cycles(n) = n * a mod 1,   a = f / fs mod 1  (host float64)
 

@@ -20,7 +20,7 @@ from bds3_tpu.track.state import (
 def main():
     W = int(sys.argv[1]) if len(sys.argv) > 1 else 100
     C = int(sys.argv[2]) if len(sys.argv) > 2 else 12
-    corr = sys.argv[3] if len(sys.argv) > 3 else "bucket"
+    corr = sys.argv[3] if len(sys.argv) > 3 else "auto"
     s = b2a_settings()
     cfg = make_track_config(s, epochs_per_block=W, correlator=corr)
     inits = [ChannelInit(prn=1 + i % 30, acquired_freq=s.intermediate_freq + 50.0 * i,

@@ -1,7 +1,7 @@
 """Multi-process worker for the distributed tracking test/demo.
 
 Each process owns a slice of a global mesh (CPU Gloo backend for the
-test; the identical code path runs over ICI/DCN on a real pod).  The
+test; the identical code path runs across GPU hosts).  The
 reference has no multi-host anything — this is the new framework's
 first-class axis (SURVEY.md §2.5).  Two modes:
 
@@ -123,7 +123,7 @@ def _channel_mode(s, sig, chans, n_dev):
 
 def _time_mode(s, sig, chans, n_dev):
     """Time-sharded tracking: loop-state ppermute handoff crosses the
-    process boundary (Gloo here; DCN on a pod)."""
+    process boundary (Gloo here; the cluster network across hosts)."""
     import numpy as np
 
     from bds3_tpu.parallel.mesh import make_mesh

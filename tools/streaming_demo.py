@@ -1,13 +1,13 @@
-"""Pod-scale streaming ingest proof: track 12 channels through a 4.9 GB
+"""Capture-scale streaming ingest proof: track 12 channels through a 4.9 GB
 on-disk capture (the reference's dataset envelope: 49 s at 99.375 Msps,
-README.md:135-141) WITHOUT holding the capture in RAM or HBM.
+README.md:135-141) WITHOUT holding the capture in host or device memory.
 
 The capture is built once by exact tiling: with doppler = 0 an integer
 number of carrier cycles (IF * 1 s) and code periods (1000) complete in
 exactly one second (99 375 000 samples), so a 1 s synthesized block
 tiles into an arbitrarily long phase-continuous capture.  Tracking then
 streams it through StreamingCapture (native pread + lookahead thread)
-in ~200 MB blocks while the fused kernel walks each block on-device.
+in ~200 MB blocks while the tracking scan walks each block on-device.
 
 Usage: python tools/streaming_demo.py [seconds=49]
 Prints total wall, realtime factor, and per-channel lock state.
